@@ -1,10 +1,13 @@
-"""sickle-tpu: a TPU-native windowed adaptive read-trimming framework.
+"""A batched windowed adaptive read trimmer.
 
 A from-scratch rebuild of sickle 1.33's capabilities (reference:
-pentalpha/sickle) designed TPU-first: host-side C++/numpy FASTQ ingestion and
-packing, a JAX/Pallas kernel for the sliding-window quality scan, shard_map
-data parallelism over device meshes, and a drop-in ``sickle se|pe`` CLI.
+pentalpha/sickle): host-side C++/numpy FASTQ ingestion and packing, a JAX
+program for the sliding-window quality scan on the accelerator (with an
+exact C++ host kernel beside it), row-sharded data parallelism over device
+meshes, and a drop-in ``sickle se|pe`` CLI.
 """
+
+import os
 
 from .constants import Compat, QualityType
 
@@ -15,24 +18,25 @@ from .io.native import tune_malloc as _tune_malloc
 _tune_malloc()
 
 
-def _enable_jax_compilation_cache() -> None:
-    """Persist XLA compilations across processes (remote TPU compiles in
-    some environments take 60-120s each; the cache makes them one-time)."""
-    import os
-
-    try:
-        import jax
-
-        cache_dir = os.environ.get(
-            "SICKLE_TPU_JAX_CACHE", os.path.expanduser("~/.cache/sickle_tpu_jax")
-        )
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+# where JAX keeps compiled programs when JAX_COMPILATION_CACHE_DIR is unset:
+# a fixed directory of the checkout (gitignored), so every process of every
+# run finds what an earlier one compiled
+JAX_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".jax_cache")
 
 
-_enable_jax_compilation_cache()
+def _place_jax_compilation_cache() -> None:
+    """Persist XLA compilations across processes.  JAX reads
+    JAX_COMPILATION_CACHE_DIR itself; only when it is unset does the
+    package name a directory, JAX_CACHE_DIR."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    import jax
+
+    jax.config.update("jax_compilation_cache_dir", JAX_CACHE_DIR)
+
+
+_place_jax_compilation_cache()
 
 __version__ = "1.33.0"
 

@@ -1,4 +1,4 @@
-"""Shared constants for sickle-tpu.
+"""Shared constants.
 
 Quality-encoding tables reproduce the reference's semantics
 (/root/reference/src/sickle.h:62-91): each encoding has an ASCII offset and a

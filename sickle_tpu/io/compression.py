@@ -152,8 +152,8 @@ class BgzfReader(io.RawIOBase):
         ``out[offset:]`` (parallel, one block per core) and return the
         byte count (0 at EOF).  This is the engine's zero-copy gzip
         producer path: decoded bytes land once in the pack source buffer
-        — no bytes()/join round trips (round-3 VERDICT item 2; compare
-        the serial copy chain in ``read``).  Any undrained remainder of
+        — no bytes()/join round trips (compare the serial copy chain in
+        ``read``).  Any undrained remainder of
         a previous ``read``/``seek`` window is copied out first (one
         bounded copy at a shard start).  Caller guarantees capacity
         (``peek_window_bytes``)."""

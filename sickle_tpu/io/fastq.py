@@ -85,7 +85,7 @@ class PackedReads:
     workspace: Optional["PackWorkspace"] = None  # owner of the buffers, if reused
     # True when the packer proved no read's quality string contains a NUL
     # byte, i.e. zero bytes in ``qual`` are exactly the padding — the
-    # invariant the TPU path needs to derive lengths on device.
+    # invariant the device step needs to derive lengths on device.
     qual_clean: bool = False
     # producer-thread-prepared wire payload (engine cuts_fn.prepare):
     # (plan, [per-slice field-wire buffers]) or None for raw rows
@@ -519,7 +519,7 @@ def _pack_fastq_native(
     # L is the chunk's TIGHT row stride (caller's running l_max estimate,
     # grown below if this chunk proves longer) — NOT the reusable
     # buffer's width: a pooled workspace that once held long reads must
-    # not widen every later chunk's rows (wire bytes are the TPU path's
+    # not widen every later chunk's rows (wire bytes are the device step's
     # binding cost).  Rows are packed at stride L into the workspace's
     # flat storage and viewed as [B, L].
     L = _round_up(max(l_max or 0, 1), len_multiple)
@@ -582,8 +582,8 @@ def _pack_fastq_native(
     seq_v, qual_v = row_views(B)
     if n < B:
         # padding rows must read as empty — including stale bytes from a
-        # previous (fuller) chunk in this reused workspace, so the TPU
-        # path's derive-lengths-from-zero-padding invariant holds on the
+        # previous (fuller) chunk in this reused workspace, so the device
+        # step's derive-lengths-from-zero-padding invariant holds on the
         # ragged final chunk too
         ws.lengths[n:B] = 0
         if pack_rows:

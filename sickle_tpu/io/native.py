@@ -19,6 +19,7 @@ import os
 import pathlib
 import subprocess
 import threading
+from typing import Optional
 
 _HERE = pathlib.Path(__file__).parent
 _SRC = _HERE / "_fastqio.cpp"
@@ -125,6 +126,8 @@ def get_lib():
         lib.sk_bgzf_inflate.restype = i64
         lib.sk_bgzf_inflate.argtypes = [pu8, p64, p64, p64, p64, i64, pu8,
                                         ctypes.c_int]
+        lib.sk_inflate_backend.restype = ctypes.c_int
+        lib.sk_inflate_backend.argtypes = []
         lib.sk_bgzf_compress.restype = i64
         lib.sk_bgzf_compress.argtypes = [pu8, i64, ctypes.c_int,
                                          ctypes.c_int, pu8, ctypes.c_int]
@@ -134,6 +137,15 @@ def get_lib():
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def inflate_backend() -> Optional[str]:
+    """Which library the BGZF codec uses ("libdeflate" or "zlib"), or
+    None without the native library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    return "libdeflate" if lib.sk_inflate_backend() else "zlib"
 
 
 def ptr(arr, ctype):

@@ -1,8 +1,7 @@
 """Device compute: the vectorized sliding-window trimming kernels.
 
-``trim`` is the reference jnp formulation (XLA-fused, used for correctness
-and as the default path); ``trim_pallas`` is the hand-fused Pallas TPU
-kernel for the hot path.  Both compute identical results and are
+``trim`` is the jnp formulation XLA compiles for the device step;
+``trim_host`` is the exact C++ host kernel beside it.  Both are
 property-tested against the scalar oracle.
 """
 

@@ -1,7 +1,7 @@
-"""Batched sliding-window trimming — the TPU-native formulation.
+"""Batched sliding-window trimming — the device formulation.
 
 This is the vectorized re-derivation of the reference's scalar, branchy
-per-read loop (/root/reference/src/trim.cpp:3-116, spec in SURVEY.md §2.3)
+per-read loop (src/trim.cpp:3-116 of the reference, spec in SURVEY.md §2.3)
 as masked data-parallel array ops over a padded batch ``[B, L]``:
 
 * rolling window sums     -> cumulative-sum difference ``W[i] = C[i+w]-C[i]``
@@ -17,9 +17,9 @@ as masked data-parallel array ops over a padded batch ``[B, L]``:
 * `int(0.1*len)` window size -> ``len // 10`` (exact for all len < 1e16:
   IEEE double 0.1*L never crosses the next integer)
 
-Everything is integer arithmetic on the VPU; no data-dependent shapes, no
-scans — a handful of elementwise passes + one cumsum + first-index
-reductions, which XLA fuses into a few bandwidth-bound kernels.
+Everything is integer arithmetic; no data-dependent shapes, no scans — a
+handful of elementwise passes + one cumsum + first-index reductions, which
+XLA fuses into a few kernels.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import jax.numpy as jnp
 
 from ..constants import Compat, QUALITY_CONSTANTS, QualityType
 
-BIG = 0x3FFFFFFF  # plain int: jnp scalars become captured consts inside pallas kernels
+BIG = 0x3FFFFFFF  # "no index" sentinel of the first-index reductions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,32 +101,12 @@ def decode_fields(buf: jnp.ndarray, p: int, L: int) -> jnp.ndarray:
     Returns small unsigned ints in an implementation-chosen dtype
     (uint8 or int16) — callers widen/compare, never assume the dtype.
 
-    One lane-expansion + shift + mask per FIELD (at most 3) instead of
-    per BIT (up to 6 with bit-planes).  On TPU the lane expansion rides
-    the MXU: ``byte = sub @ R`` with a static 0/1 replication matrix
-    (bf16 exact for bytes, f32 accumulate) — measured 3.5x faster than
-    ``jnp.repeat`` (a lane-axis relayout) for the full decode+cuts
-    program on v5e (PALLAS_TPU_r05.json).  Other backends keep the
-    repeat formulation; both are bit-exact (verified on chip).
+    One lane expansion (``jnp.repeat``) + shift + mask per FIELD (at
+    most 3) instead of per BIT (up to 6 with bit-planes).  A bf16
+    replication-matmul form of the expansion is exact too, but on the
+    H100 it was no faster for the whole decode+cuts step (PERF.md,
+    "Kernel decisions on the H100"), so this is the only form.
     """
-    if jax.default_backend() == "tpu":
-        v = None
-        for w, sh, colf in _field_widths(p):
-            col = int(colf * L)
-            per = 8 // w
-            sub = buf[:, col:col + L * w // 8]
-            rep_mat = (jax.lax.broadcasted_iota(jnp.int32, (sub.shape[1], L), 0)
-                       == jax.lax.broadcasted_iota(jnp.int32, (sub.shape[1], L), 1)
-                       // per).astype(jnp.bfloat16)
-            byte = jax.lax.dot_general(
-                sub.astype(jnp.bfloat16), rep_mat, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32).astype(jnp.int16)
-            lane = jax.lax.broadcasted_iota(jnp.int16, (buf.shape[0], L), 1)
-            shift = (lane % per).astype(jnp.int16) * w
-            f = (byte >> shift) & ((1 << w) - 1)
-            part = (f << sh) if sh else f
-            v = part if v is None else v | part
-        return v
     v = None
     for w, sh, colf in _field_widths(p):
         col = int(colf * L)
@@ -154,7 +134,7 @@ def apply_rank_lut(v: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
     """Decode rank-wire values: ``q = lut[v]`` for v in [1, len(lut)),
     0 for padding (io.fastq.qual_rank_fields is the host-side inverse).
     The LUT is tiny and static-size (<= 8), so this expands to a fused
-    select chain — no gather (lane gathers are catastrophic on TPU)."""
+    select chain instead of a gather."""
     q = jnp.zeros_like(v)
     for k in range(1, lut.shape[0]):
         q = jnp.where(v == k, lut[k], q)
@@ -166,7 +146,7 @@ def compute_cuts(
     qual: jnp.ndarray,  # uint8[B, L] raw ASCII quality bytes
     lengths: jnp.ndarray,  # int32[B]; 0 marks padding rows
     params: TrimParams,
-    formulation: str = "auto",
+    formulation: str = "gather",
     uniform_len: Optional[int] = None,
 ):
     """Compute per-read cutsites.
@@ -176,9 +156,9 @@ def compute_cuts(
     Padding rows (length 0) are always discarded.
 
     ``formulation`` picks how the per-row dynamic shift ``D[i+w]`` is
-    resolved: ``"shift"`` (O(log L) static shifts — TPU default, where a
-    lane-axis gather is ~1000x slow) or ``"gather"`` (one
-    take_along_axis — CPU/GPU default).  ``"auto"`` selects by backend.
+    resolved: ``"gather"`` (one take_along_axis; the default, fastest on
+    the H100 at 150 bp and 50 kbp) or ``"shift"`` (O(log L) static
+    shifts, kept as an exact alternative).
     """
     lens = lengths.astype(jnp.int32)
     q, first_bad = decode_check(qual, lens, params.qualtype)
@@ -192,9 +172,8 @@ def compute_cuts_from_q(
     lengths: jnp.ndarray,  # int32[B]; 0 marks padding rows
     params: TrimParams,
     seq: Optional[jnp.ndarray] = None,  # only read when trunc_n
-    formulation: str = "auto",
+    formulation: str = "gather",
     uniform_len: Optional[int] = None,
-    trigger: str = "reduce",
 ):
     """Core cut computation on already-decoded qualities.
 
@@ -202,12 +181,9 @@ def compute_cuts_from_q(
     via ``decode_fields``, where ``q = v + bias`` is computed by the caller
     and range errors are excluded host-side).
 
-    The sequential trigger structure is resolved with PREFIX-OR masks
-    instead of first-index reductions + cross-row broadcasts (round-4
-    rework): ``j >= i5  <=>  cumOR(hi)[j]``, so the 3' trigger and both
-    within-window scans become independent fused masks — two lane
-    reductions total instead of six, and no i5/i3 broadcast dependency
-    chain.  ``uniform_len`` (static): every non-padding row has that
+    The sequential trigger structure is resolved with masked first-index
+    reductions (XLA fuses them well).  ``uniform_len`` (static): every
+    non-padding row has that
     length — the common Illumina case — so the window size is a
     compile-time constant and the per-row shift chain collapses to ONE
     static shift.
@@ -222,10 +198,12 @@ def compute_cuts_from_q(
 
     # Narrow accumulator: the whole D-transform chain fits int16 when
     # every IN-RANGE decoded q keeps |C| and t*L under the i16 ceiling —
-    # half the VPU register traffic of i32 on the op-bound TPU path.
-    # Exactness: for rows whose touched extent holds only in-range chars
-    # the sums are within bounds by the gate below; an OUT-OF-RANGE char
-    # can only wrap prefix values at lanes AFTER its position, and such
+    # 4-8% faster than i32 per 65,536 x 152 batch on the H100 (PERF.md,
+    # "Kernel decisions on the H100"); SICKLE_TPU_NO_I16 forces i32 for
+    # that comparison.  Exactness: for rows whose touched extent holds
+    # only in-range chars the sums are within bounds by the gate below;
+    # an OUT-OF-RANGE char can only wrap prefix values at lanes AFTER
+    # its position, and such
     # a row either (a) was touched => flagged => host re-derives scalar
     # cuts, or (b) untouched => every trigger/scan index the reductions
     # select lies before the wrap point (first-index minima cannot be
@@ -259,18 +237,14 @@ def compute_cuts_from_q(
         # window size: int(0.1*len) == len // 10; if 0, whole read
         w = lens // 10
         w = jnp.where(w == 0, lens, w)
-        if formulation == "auto":
-            formulation = ("shift" if jax.default_backend() == "tpu"
-                           else "gather")
         if formulation == "shift":
             # Binary decomposition of the per-row shift: compose
             # conditional STATIC shifts by powers of two, padding with
             # D[L], so dw[i] = D[min(i + w, L)] in O(log wmax) fused
-            # elementwise passes — no gather (lane-gather is ~1000x
-            # slower on TPU) and no O(L/10) unrolled select chain
-            # (compile explosion on long reads).  Exact: each applied
-            # step adds 2^k to the accumulated shift and the D[L] fill
-            # propagates through later steps unchanged.
+            # elementwise passes — no gather, and no O(L/10) unrolled
+            # select chain (compile explosion on long reads).  Exact:
+            # each applied step adds 2^k to the accumulated shift and the
+            # D[L] fill propagates through later steps unchanged.
             d_last_row = jnp.broadcast_to(d_last, (B, L))
             wmax = max(9, L // 10)
             w2d = w[:, None]
@@ -284,8 +258,8 @@ def compute_cuts_from_q(
                 )
                 dw = jnp.where((w2d >> k) & 1 == 1, shifted, dw)
         else:
-            # CPU/GPU: one gather of D[i+w] compiles and runs faster
-            # than the shift chain
+            # one gather of D[i+w]: compiles and runs faster than the
+            # shift chain
             d_full = jnp.concatenate([d, d_last], axis=1)  # D[0..L]
             iw = jnp.minimum(lane + w[:, None], L)
             dw = jnp.take_along_axis(d_full, iw, axis=1)
@@ -295,27 +269,13 @@ def compute_cuts_from_q(
     hi = i_valid & (dw >= d)
     lo = i_valid & (dw < d)
 
-    if trigger == "prefix":
-        # prefix-OR form: prefix_hi[j] <=> exists valid window i <= j
-        # with avg >= t <=> j >= i5.  Fewer reductions, two extra
-        # cumsums — wins inside the MXU Pallas kernel (matmul prefix),
-        # loses in XLA (r4 on-chip: 3.05 vs 1.49 ms / 64k x 152).
-        prefix_hi = jnp.cumsum(hi.astype(jnp.int32), axis=1) > 0
-        found_five = prefix_hi[:, L - 1] & (lens > 0)
-        lo3 = lo if params.no_fiveprime else (lo & prefix_hi)
-        prefix_lo3 = jnp.cumsum(lo3.astype(jnp.int32), axis=1) > 0
-        three_trig = prefix_lo3[:, L - 1]
-        five_mask = in_read & (q >= t) & prefix_hi
-        three_mask = in_read & (q < t) & prefix_lo3
-    else:
-        # first-index form (XLA fuses the masked min-reductions well)
-        i5 = _first_index(hi)
-        found_five = (i5 < BIG) & (lens > 0)
-        start3 = jnp.zeros_like(i5) if params.no_fiveprime else i5
-        i3 = _first_index(lo & (ii >= start3[:, None]))
-        three_trig = i3 < BIG
-        five_mask = in_read & (q >= t) & (lane >= i5[:, None])
-        three_mask = in_read & (q < t) & (lane >= i3[:, None])
+    i5 = _first_index(hi)
+    found_five = (i5 < BIG) & (lens > 0)
+    start3 = jnp.zeros_like(i5) if params.no_fiveprime else i5
+    i3 = _first_index(lo & (ii >= start3[:, None]))
+    three_trig = i3 < BIG
+    five_mask = in_read & (q >= t) & (lane >= i5[:, None])
+    three_mask = in_read & (q < t) & (lane >= i3[:, None])
 
     # 5' cut: first position >= i5 with q >= t (guaranteed inside the window)
     if params.no_fiveprime:
@@ -352,6 +312,6 @@ def compute_cuts_from_q(
 @functools.partial(jax.jit,
                    static_argnames=("params", "formulation", "uniform_len"))
 def compute_cuts_jit(seq, qual, lengths, params: TrimParams,
-                     formulation: str = "auto",
+                     formulation: str = "gather",
                      uniform_len: Optional[int] = None):
     return compute_cuts(seq, qual, lengths, params, formulation, uniform_len)

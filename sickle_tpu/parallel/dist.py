@@ -1,11 +1,11 @@
 """Multi-host distribution: runtime init, input sharding, counter merge.
 
-The reference is strictly single-process (SURVEY.md §2.2/§5.8).  The
-TPU-native scale-out story: every host streams its own shard of the input
-(reads are embarrassingly parallel; no cross-chip traffic on the read
-path), chips within a host shard each batch row-wise over ICI
+The reference is strictly single-process (SURVEY.md §2.2/§5.8).  Here
+every process streams its own shard of the input (reads are
+embarrassingly parallel; no cross-device traffic on the read path), the
+devices of one process shard each batch row-wise
 (``mesh.sharded_cuts_fn``), and the ONLY global communication is the
-end-of-run scalar counter reduction (psum over ICI/DCN).
+end-of-run scalar counter reduction.
 """
 
 from __future__ import annotations
@@ -29,9 +29,11 @@ def init_distributed(
 ) -> None:
     """Initialize the JAX distributed runtime (multi-host).
 
-    Equivalent role to an MPI/NCCL init in GPU-world frameworks; here it
-    just wires the JAX coordination service so ``jax.devices()`` spans
-    hosts and collectives ride ICI/DCN.
+    Wires the JAX coordination service so ``jax.devices()`` spans the
+    processes.  Each process opens every GPU it can see, and a JAX GPU
+    process reserves most of a card's memory: run one process per host
+    (its cards sharded through ``--devices``), or give each process its
+    own card with ``CUDA_VISIBLE_DEVICES``.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -5,7 +5,7 @@ driver): walks an input directory, pairs mate files by ``.1/.2`` or
 ``_1/_2`` suffix, skips outputs that already exist (resume), shows
 progress, and reports per-file timing.
 
-TPU-native difference: files are processed IN-PROCESS through the engine,
+Difference from the reference: files are processed IN-PROCESS through the engine,
 so the jitted kernel compiles once and is reused across every file —
 the reference pays full process startup per file.
 

@@ -163,7 +163,7 @@ def test_gzip_checkpoint_resume_byte_identical(fixture_bytes, tmp_path):
     """-g + --checkpoint: BgzfWriter flushes whole gzip members at every
     progress callback, so a recorded size is a valid truncation point;
     kill/resume reproduces the straight checkpointed run's .gz bytes
-    exactly and the plain run's decompressed bytes (VERDICT r2 item 8)."""
+    exactly and the plain run's decompressed bytes."""
     import gzip as _gz
 
     from sickle_tpu.io import native

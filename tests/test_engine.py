@@ -14,6 +14,7 @@ from sickle_tpu import oracle
 from sickle_tpu.constants import Compat, QualityType
 from sickle_tpu.engine import EngineConfig, iter_record_chunks, run_pe, run_se
 from sickle_tpu.ops import TrimParams
+from sickle_tpu.tools.synth_fastq import synth_fastq_bytes
 
 
 def params60():
@@ -21,8 +22,10 @@ def params60():
 
 
 @pytest.fixture(scope="module")
-def fixture_bytes(reference_fixtures):
-    return (reference_fixtures / "test.fastq").read_bytes()
+def fixture_bytes():
+    # 2,500 seeded reads written at the +64 offset: read as sanger they
+    # span Q33-Q72, so the q=60 threshold trims most reads somewhere
+    return synth_fastq_bytes(2500, seed=1, qual_type="illumina")
 
 
 def se_run(data, rpc, cuts_fn=None, compat=Compat.FORK):
@@ -127,10 +130,10 @@ def test_pe_interleaved_M_multichunk(fixture_bytes):
 
 
 def test_tpu_step_matches_reference_path(fixture_bytes):
-    """The RPC-minimized TPU step (device-derived lengths + encoded
+    """The engine's device step (device-derived lengths + encoded
     results) must agree with the plain kernel; runs on CPU (the step is
-    backend-agnostic)."""
-    from sickle_tpu.engine.pipeline import _materialize, _tpu_cuts_fn
+    the same on every backend)."""
+    from sickle_tpu.engine.pipeline import _materialize, _device_cuts_fn
     from sickle_tpu.io import pack_fastq
     from sickle_tpu.ops import compute_cuts_jit
 
@@ -140,7 +143,7 @@ def test_tpu_step_matches_reference_path(fixture_bytes):
             qualtype=QualityType.SANGER, qual_threshold=60,
             trunc_n=trunc_n, compat=Compat.FORK,
         )
-        fn = _tpu_cuts_fn(params)
+        fn = _device_cuts_fn(params)
         got = _materialize(fn(p.seq, p.qual, p.lengths), p.n_records)
         want = _materialize(
             compute_cuts_jit(p.seq, p.qual, p.lengths, params), p.n_records
@@ -153,13 +156,13 @@ def test_tpu_step_matches_reference_path(fixture_bytes):
     qual2 = p.qual.copy()
     qual2[5, 10] = 0
     params = TrimParams(qualtype=QualityType.SANGER, qual_threshold=60)
-    fn = _tpu_cuts_fn(params)
+    fn = _device_cuts_fn(params)
     f, t, bad = _materialize(fn(p.seq, qual2, p.lengths), p.n_records)
     assert bad[5] < p.lengths[5]
 
 
 def test_materialize_encoded_roundtrip():
-    """The TPU path's packed int32 encoding ((five+1)<<16 | badbit<<15 |
+    """The device step's packed int32 encoding ((five+1)<<16 | badbit<<15 |
     (three+1)) and the long-read [3, B] stack both decode to the tuple
     contract."""
     from sickle_tpu.engine.pipeline import _materialize
@@ -208,19 +211,19 @@ def test_validation_error_mid_stream():
     assert "different lengths" in e.value.message
 
 
-def test_sliced_tpu_cuts_fn_matches_oracle(fixture_bytes):
-    """The TPU sliced-dispatch path (built by _tpu_cuts_fn) must produce
+def test_sliced_device_cuts_fn_matches_oracle(fixture_bytes):
+    """The sliced device step (built by _device_cuts_fn) must produce
     byte-identical output to the default path at any slice size,
     including ragged last chunks, -n (stacked seq+qual transfer), and the
-    explicit-lengths fallback.  Runs on CPU: the fn is backend-agnostic;
-    only its RPC shaping is TPU-motivated."""
-    from sickle_tpu.engine.pipeline import _tpu_cuts_fn
+    explicit-lengths fallback.  Runs on CPU: the step is the same on
+    every backend."""
+    from sickle_tpu.engine.pipeline import _device_cuts_fn
 
     data = fixture_bytes[: fixture_bytes.find(b"\n@", 4 * 80 * 600)]
     p = params60()
     want, cw = se_run(data, 256)
     for slice_rows, inflight in ((8, 2), (64, 1), (256, 4)):
-        fn = _tpu_cuts_fn(p, slice_rows=slice_rows, inflight=inflight)
+        fn = _device_cuts_fn(p, slice_rows=slice_rows, inflight=inflight)
         cfg = EngineConfig(records_per_chunk=256, compat=Compat.FORK,
                            slice_rows=slice_rows, inflight=inflight)
         out = io.BytesIO()
@@ -229,14 +232,14 @@ def test_sliced_tpu_cuts_fn_matches_oracle(fixture_bytes):
         assert (c.total, c.kept, c.discarded) == (cw.total, cw.kept, cw.discarded)
 
 
-def test_sliced_tpu_cuts_fn_trunc_n_and_badqual():
-    from sickle_tpu.engine.pipeline import _tpu_cuts_fn
+def test_sliced_device_cuts_fn_trunc_n_and_badqual():
+    from sickle_tpu.engine.pipeline import _device_cuts_fn
 
     p = TrimParams(qualtype=QualityType.SANGER, qual_threshold=30,
                    trunc_n=True, compat=Compat.FORK)
     rec = b"@r%d\nACGTNACGTACGTACGTACGTACGTACGTACGT\n+\n" + b"I" * 33 + b"\n"
     data = b"".join(rec % i for i in range(100))
-    fn = _tpu_cuts_fn(p, slice_rows=16, inflight=2)
+    fn = _device_cuts_fn(p, slice_rows=16, inflight=2)
     cfg = EngineConfig(records_per_chunk=64, slice_rows=16, compat=Compat.FORK)
     out = io.BytesIO()
     run_se(io.BytesIO(data), out, p, cfg=cfg, cuts_fn=fn)
@@ -261,7 +264,7 @@ def test_touched_only_quality_vs_strict():
     """Reference parity on dirty data (src/trim.cpp:66-73): a junk quality
     char past the 3' break — or in a read discarded by the upfront length
     filter — trims fine by default, but errors under --strict."""
-    from sickle_tpu.engine.pipeline import _tpu_cuts_fn
+    from sickle_tpu.engine.pipeline import _device_cuts_fn
 
     good = b"@g%d\n" + b"A" * 40 + b"\n+\n" + b"I" * 40 + b"\n"
     # 3' break early: high head, low middle => scan stops; tail junk unread
@@ -276,7 +279,7 @@ def test_touched_only_quality_vs_strict():
         out = io.BytesIO()
         cfg = EngineConfig(records_per_chunk=16, slice_rows=8,
                            compat=Compat.FORK)
-        fn = _tpu_cuts_fn(params, slice_rows=8, inflight=2)
+        fn = _device_cuts_fn(params, slice_rows=8, inflight=2)
         c = run_se(io.BytesIO(data), out, params, cfg=cfg, cuts_fn=fn)
         return out.getvalue(), c
 
@@ -296,12 +299,12 @@ def test_touched_only_quality_vs_strict():
 
 def test_long_reads_end_to_end_tpu_path(tmp_path):
     """A 40 kbp-read FASTQ (ONT/PacBio scale) must trim byte-identically
-    to the oracle through the TPU dispatch path: the packed int32 encoding
+    to the oracle through the device step: the packed int32 encoding
     does not fit (three+1) at L >= 32766, so the engine switches to the
     unpacked device result, and EngineConfig.bytes_per_batch shrinks the
-    chunk so padded batches stay bounded (VERDICT r1 item 2; the reference
-    is length-agnostic, src/trim.cpp:8-34)."""
-    from sickle_tpu.engine.pipeline import _mmap_input, _tpu_cuts_fn
+    chunk so padded batches stay bounded (the reference is
+    length-agnostic, src/trim.cpp:8-34)."""
+    from sickle_tpu.engine.pipeline import _mmap_input, _device_cuts_fn
 
     rng = np.random.default_rng(7)
     recs = []
@@ -324,7 +327,7 @@ def test_long_reads_end_to_end_tpu_path(tmp_path):
     want, cw = oracle.trim_se(data, qualtype=QualityType.SANGER,
                               qual_threshold=60, compat=Compat.FORK)
 
-    fn = _tpu_cuts_fn(p, slice_rows=32768, inflight=2)
+    fn = _device_cuts_fn(p, slice_rows=32768, inflight=2)
     cfg = EngineConfig(records_per_chunk=1 << 16, compat=Compat.FORK,
                        bytes_per_batch=1 << 20)  # forces tiny row chunks
     fpath = tmp_path / "long.fastq"
@@ -428,12 +431,12 @@ def test_pe_two_file_mmap_matches(reference_fixtures, tmp_path):
 def test_metrics_per_chunk_rows(fixture_bytes):
     """--metrics instrumentation: one aligned row per chunk per stage,
     correct record/byte totals, lazy-window path included (SURVEY §5.1)."""
-    from sickle_tpu.engine.pipeline import _tpu_cuts_fn
+    from sickle_tpu.engine.pipeline import _device_cuts_fn
     from sickle_tpu.utils.metrics import Metrics
 
     p = params60()
     m = Metrics()
-    fn = _tpu_cuts_fn(p, slice_rows=256, inflight=2)  # lazy dispatch path
+    fn = _device_cuts_fn(p, slice_rows=256, inflight=2)  # lazy dispatch path
     cfg = EngineConfig(records_per_chunk=512, compat=Compat.FORK,
                        slice_rows=256, metrics=m)
     out = io.BytesIO()
@@ -474,9 +477,9 @@ def test_metrics_stall_detection():
 
 
 def test_sharded_fn_qual_only_and_packed_result(fixture_bytes):
-    """--devices N inherits the TPU link discipline (VERDICT r2 item 4):
-    without -n the sharded fn never touches `seq` (qual-only H2D proves
-    it: seq=None works) and D2H is the packed one-int32-per-read code."""
+    """--devices N runs the same device step: without -n the sharded fn
+    never touches `seq` (qual-only H2D proves it: seq=None works) and D2H
+    is the packed one-int32-per-read code."""
     import jax
 
     if len(jax.devices()) < 8:

@@ -1,8 +1,8 @@
 """Hybrid device+host dispatcher: byte-identity, routing, and failover.
 
-The device fn here is the CPU jnp kernel (tests never touch the TPU);
-the contract under test is the DISPATCHER's: any mix of device/host
-routing, including stall rescue, must produce byte-identical output and
+The device fn here is the CPU jnp kernel (tests never touch an
+accelerator); the contract under test is the DISPATCHER's: any mix of
+device/host routing, including stall rescue, must produce byte-identical output and
 exact counters.
 """
 
@@ -17,12 +17,11 @@ from sickle_tpu.engine import EngineConfig, run_se
 from sickle_tpu.engine.hybrid import HybridCutsFn
 from sickle_tpu.engine.pipeline import _adapt_cuts_fn
 from sickle_tpu.ops import TrimParams, compute_cuts_jit
-
-FIXTURE = "/root/reference/test/test.fastq"
+from sickle_tpu.tools.synth_fastq import synth_fastq_bytes
 
 
 def params():
-    return TrimParams(qualtype=QualityType.SANGER, qual_threshold=60,
+    return TrimParams(qualtype=QualityType.SANGER, qual_threshold=30,
                       length_threshold=20, compat=Compat.V133)
 
 
@@ -35,7 +34,7 @@ def run(data: bytes, cuts_fn, rpc=512) -> tuple:
 
 @pytest.fixture(scope="module")
 def fixture_bytes():
-    return open(FIXTURE, "rb").read() * 4  # 10k reads, ~20 chunks at rpc=512
+    return synth_fastq_bytes(10_000, seed=4)  # ~20 chunks at rpc=512
 
 
 @pytest.fixture(scope="module")
@@ -133,19 +132,19 @@ def test_hybrid_quality_error_parity(tmp_path):
     assert "does not fall within correct range" in e.value.message
 
 
-def test_cli_mesh_path_hybrid_byte_identity(tmp_path):
+def test_cli_mesh_path_hybrid_byte_identity(tmp_path, synth_dir):
     """--devices 8 (virtual CPU mesh) goes through the hybrid wrapper in
     the CLI; output must equal the single-device run byte-for-byte."""
     import os
     import subprocess
     import sys
 
-    env = dict(os.environ, SICKLE_TPU_PLATFORM="cpu", JAX_PLATFORMS="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     out1 = tmp_path / "one.fastq"
     out8 = tmp_path / "mesh.fastq"
-    base = [sys.executable, "-m", "sickle_tpu", "se", "-f", FIXTURE,
-            "-t", "sanger", "-q", "60"]
+    base = [sys.executable, "-m", "sickle_tpu", "se", "-f",
+            str(synth_dir / "se.fastq"), "-t", "sanger", "-q", "30"]
     for out, extra in ((out1, ["--devices", "1"]),
                        (out8, ["--devices", "8"])):
         r = subprocess.run(base + ["-o", str(out)] + extra, env=env,
@@ -162,8 +161,8 @@ def test_hybrid_pe_host_only_indexed_matches():
     from sickle_tpu import oracle
     from sickle_tpu.engine import run_pe
 
-    d1 = open("/root/reference/test/test.f.fastq", "rb").read()
-    d2 = open("/root/reference/test/test.r.fastq", "rb").read()
+    d1 = synth_fastq_bytes(1250, seed=2, mate=1)
+    d2 = synth_fastq_bytes(1250, seed=2, mate=2)
     p = params()
     fn = HybridCutsFn(p, None)
     o1, o2, so = io.BytesIO(), io.BytesIO(), io.BytesIO()
@@ -174,7 +173,7 @@ def test_hybrid_pe_host_only_indexed_matches():
     finally:
         fn.close()
     w1, w2, ws, cc = oracle.trim_pe(d1, d2, qualtype=QualityType.SANGER,
-                                    qual_threshold=60, length_threshold=20)
+                                    qual_threshold=30, length_threshold=20)
     assert o1.getvalue() == w1
     assert o2.getvalue() == w2
     assert so.getvalue() == ws

@@ -78,30 +78,31 @@ def test_shrinking_truncate_zeroes_stale_tail(tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["se", "pe"])
-def test_cli_mmap_vs_buffered_identity(tmp_path, mode):
+def test_cli_mmap_vs_buffered_identity(tmp_path, mode, synth_dir):
     """The mmap emit path and the classic write() path produce identical
     bytes through the real CLI."""
-    fix = "/root/reference/test/test.fastq"
-    ff, fr = "/root/reference/test/test.f.fastq", "/root/reference/test/test.r.fastq"
+    fix = str(synth_dir / "se.fastq")
+    ff, fr = str(synth_dir / "r1.fastq"), str(synth_dir / "r2.fastq")
     outs = {}
     for tag, env_extra in (("mm", {}), ("buf", {"SICKLE_TPU_NO_MMAP_OUT": "1"})):
-        env = dict(os.environ, SICKLE_TPU_PLATFORM="cpu", **env_extra)
+        env = dict(os.environ, JAX_PLATFORMS="cpu", **env_extra)
         if mode == "se":
             o = tmp_path / f"{tag}.fastq"
             cmd = [sys.executable, "-m", "sickle_tpu", "se", "-f", fix,
-                   "-t", "sanger", "-q", "60", "-o", str(o), "--quiet"]
+                   "-t", "sanger", "-q", "30", "-o", str(o), "--quiet"]
             files = [o]
         else:
             o1 = tmp_path / f"{tag}1.fastq"
             o2 = tmp_path / f"{tag}2.fastq"
             so = tmp_path / f"{tag}s.fastq"
             cmd = [sys.executable, "-m", "sickle_tpu", "pe", "-f", ff, "-r", fr,
-                   "-t", "sanger", "-q", "60", "-o", str(o1), "-p", str(o2),
+                   "-t", "sanger", "-q", "30", "-o", str(o1), "-p", str(o2),
                    "-s", str(so), "--quiet"]
             files = [o1, o2, so]
         subprocess.run(cmd, check=True, env=env, capture_output=True)
         outs[tag] = [f.read_bytes() for f in files]
     assert outs["mm"] == outs["buf"]
+    assert all(outs["mm"])  # every output received records
 
 
 def test_fused_emit_empty_comment_grows_output(tmp_path):
@@ -115,7 +116,7 @@ def test_fused_emit_empty_comment_grows_output(tmp_path):
     src = tmp_path / "empty_comment.fastq"
     src.write_bytes(b"".join(recs))
     out = tmp_path / "o.fastq"
-    env = dict(os.environ, SICKLE_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     subprocess.run([sys.executable, "-m", "sickle_tpu", "se", "-f", str(src),
                     "-t", "sanger", "-q", "20", "--compat", "1.33",
                     "-o", str(out), "--quiet"], check=True, env=env,

@@ -1,9 +1,9 @@
 """Field-wire format tests (io.fastq.qual_fields <-> ops.trim.decode_fields).
 
-The TPU engine ships the p-bit biased quality value as byte-aligned
+The device step ships the p-bit biased quality value as byte-aligned
 4/2/1-bit subfields instead of raw u8 rows when a chunk's quality chars
 fit a p<=6-bit band inside the encoding's range — p/8 of the H2D bytes
-on the byte-metered link at ~3 decode passes.  These tests pin the
+at ~3 decode passes.  These tests pin the
 round-trip exactly and prove the engine's output is byte-identical with
 the format on and off, including the fallbacks (out-of-range chars, NUL
 bytes, -n) where the compressed wire must NOT be used.
@@ -15,13 +15,16 @@ import os
 import numpy as np
 import pytest
 
+from sickle_tpu import oracle
 from sickle_tpu.constants import QualityType
 from sickle_tpu.engine import EngineConfig, run_se
-from sickle_tpu.engine.pipeline import _tpu_cuts_fn
+from sickle_tpu.engine.pipeline import _device_cuts_fn
 from sickle_tpu.io.fastq import QUAL_PLANES, qual_fields, qual_minmax
 from sickle_tpu.ops import TrimParams
+from sickle_tpu.tools.synth_fastq import synth_fastq_bytes
 
-FIXTURE = "/root/reference/test/test.fastq"
+# 2,500 seeded reads (10% ragged, N-rich reads, low-quality tails)
+DATA = synth_fastq_bytes(2500, seed=1)
 
 
 def _random_qual(rng, B, L, lo=59, hi=105):
@@ -73,7 +76,7 @@ def _run(params, data, no_planes, slice_rows=512):
     else:
         os.environ.pop("SICKLE_TPU_NO_PLANES", None)
     try:
-        fn = _tpu_cuts_fn(params, slice_rows=slice_rows, inflight=2)
+        fn = _device_cuts_fn(params, slice_rows=slice_rows, inflight=2)
         buf = io.BytesIO()
         c = run_se(io.BytesIO(data), buf, params,
                    cfg=EngineConfig(records_per_chunk=slice_rows,
@@ -84,13 +87,18 @@ def _run(params, data, no_planes, slice_rows=512):
 
 
 def test_engine_byte_identity_planes_vs_raw():
-    params = TrimParams(qualtype=QualityType.SANGER, qual_threshold=60,
+    params = TrimParams(qualtype=QualityType.SANGER, qual_threshold=30,
                         length_threshold=20)
-    data = open(FIXTURE, "rb").read()
+    data = DATA
     out_p, c_p, h2d_p = _run(params, data, no_planes=False)
     out_r, c_r, h2d_r = _run(params, data, no_planes=True)
     assert out_p == out_r
-    assert (c_p.total, c_p.kept, c_p.discarded) == (2500, 2403, 97)
+    want, wc = oracle.trim_se(data, qualtype=QualityType.SANGER,
+                              qual_threshold=30, length_threshold=20)
+    assert out_p == want
+    assert (c_p.total, c_p.kept, c_p.discarded) == (
+        wc.total, wc.kept, wc.discarded)
+    assert 0 < wc.discarded < wc.total == 2500
     assert h2d_p < h2d_r  # planes actually engaged and saved wire bytes
 
 
@@ -126,18 +134,17 @@ def test_nul_in_quality_still_errors():
 
 
 def test_mesh_path_uses_planes_and_matches():
-    # --devices N inherits the field wire (VERDICT r2 item 4's
-    # discipline-parity requirement extends to the compressed format):
-    # byte-identity vs single-device, and fewer wire bytes than raw rows
+    # --devices N inherits the field wire: byte-identity vs single
+    # device, and fewer wire bytes than raw rows
     import jax
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
     from sickle_tpu.parallel import data_mesh, sharded_cuts_fn
 
-    params = TrimParams(qualtype=QualityType.SANGER, qual_threshold=60,
+    params = TrimParams(qualtype=QualityType.SANGER, qual_threshold=30,
                         length_threshold=20)
-    data = open(FIXTURE, "rb").read()
+    data = DATA
     mesh = data_mesh(8)
     h2d = {}
     outs = {}
@@ -166,7 +173,7 @@ def test_trunc_n_uses_seq_path_and_matches():
     # must be taken — outputs identical either way
     params = TrimParams(qualtype=QualityType.SANGER, qual_threshold=20,
                         length_threshold=10, trunc_n=True)
-    data = open(FIXTURE, "rb").read()
+    data = DATA
     out_p, c_p, _ = _run(params, data, no_planes=False)
     out_r, c_r, _ = _run(params, data, no_planes=True)
     assert out_p == out_r

@@ -68,6 +68,6 @@ def test_galaxy_wrapper_param_parity():
     for frag in ("-q $qual_threshold", "-l $length_threshold", "-a $threads",
                  "-b $batch", "$no_five_prime", "$trunc_n", "$gzip_output"):
         assert frag in cmd, frag
-    # the <tests> block exercises the new params (VERDICT r2 item 7)
+    # the <tests> block exercises the new params
     test_params = {p.get("name") for p in tree.find("tests").iter("param")}
     assert {"threads", "batch"} <= test_params
